@@ -1,10 +1,10 @@
-// Native scene-builder kernels for sph_tpu.
+// Native scene-builder kernels for sph_jax.
 //
 // The reference's scene generator is native C++ (owHelper.cpp:104-1429);
 // this library is its counterpart here: the O(N)-heavy emission loops
 // (boundary box, swimming pool, inner worm liquid) and the O(Ne * local)
 // spring-graph search, exposed through a C ABI consumed via ctypes
-// (sph_tpu/scene/native.py). Float semantics deliberately mirror the
+// (sph_jax/scene/native.py). Float semantics deliberately mirror the
 // reference's single-precision accumulation loops (build with
 // -ffp-contract=off so results match the NumPy float32 fallback bitwise).
 //

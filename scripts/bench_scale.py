@@ -1,31 +1,31 @@
 """At-scale throughput: multi-worm and ~1M-particle dam-break on the
-fast and fastw engines (SURVEY §7 step 6-7 stress configs; VERDICT r4
-#8: keep the at-scale table fresh after engine changes). Run on the
-real chip:
+fast and fastw engines (SURVEY §7 step 6-7 stress configs). Run on a GPU:
 
     python scripts/bench_scale.py [n_worms] [fill] [engine]
 
-engine: "fastw" (default; falls back to fast for wall-anchored scenes),
-"fast", or "both".
+engine: "fastw" (default; needs elastic-only spring anchors), "fast", or
+"both". Every timed window ends in jax.block_until_ready, and every result
+line names the card and its power limit. Exits non-zero when JAX finds no
+GPU (on the CPU the pair kernels would only run interpreted).
 """
 import os
-os.environ["JAX_PLATFORMS"] = ""
-os.environ.setdefault("SPH_TPU_DMA_DEPTH", "8")
 import sys
 import time
 
+import jax
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from sph_tpu.config import SimParams
-from sph_tpu.core.fast import compute_fast_config, make_fast_multi_step
-from sph_tpu.core.fastw import (
+from sph_jax.checks import card_line
+from sph_jax.config import SimParams
+from sph_jax.core.fast import compute_fast_config, make_fast_multi_step
+from sph_jax.core.fastw import (
     compute_fastw_config,
     make_fastw_multi_step,
     precompute_wall_static,
 )
-from sph_tpu.scene import (
+from sph_jax.scene import (
     generate_liquid_box_scene,
     generate_multi_worm_params,
     generate_multi_worm_scene,
@@ -34,13 +34,13 @@ from sph_tpu.scene import (
 CHUNK = 30
 
 
-def measure(name, scene, params, engine="fastw", chunk=CHUNK, rounds=4):
+def measure(name, scene, params, card, engine="fastw", chunk=CHUNK,
+            rounds=4):
     state, springs, membranes = scene.device_state()
     layout = scene.layout()
     if engine == "fastw":
         cfg = compute_fastw_config(scene.pos, params, layout,
-                                   ptype=scene.ptype,
-                                   block=256, ccol=512, ccol_c=256)
+                                   ptype=scene.ptype)
         ws = precompute_wall_static(scene.pos, scene.normal, params,
                                     layout, cfg)
         run = make_fastw_multi_step(params, layout, cfg, chunk,
@@ -50,26 +50,31 @@ def measure(name, scene, params, engine="fastw", chunk=CHUNK, rounds=4):
         run = make_fast_multi_step(params, layout, cfg, chunk)
     n = scene.n_particles
     t0 = time.time()
-    state = run(state, springs, membranes)
-    float(np.asarray(state.pos[0]).sum())
+    state = jax.block_until_ready(run(state, springs, membranes))
     compile_s = time.time() - t0
     t0 = time.time()
     for _ in range(rounds):
         state = run(state, springs, membranes)
-    float(np.asarray(state.pos[0]).sum())
+    jax.block_until_ready(state)
     wall = time.time() - t0
     steps = rounds * chunk
     ms = wall / steps * 1e3
     pps = n * steps / wall
     pos = np.asarray(state.pos)[: n]
     ok = bool(np.isfinite(pos).all())
-    print(f"{name} [{engine}]: {n} particles, {ms:.1f} ms/step, "
+    print(f"{name} [{engine}]: {n} particles, {ms:.3f} ms/step, "
           f"{pps/1e6:.2f}M particle-steps/s, compile {compile_s:.0f}s, "
-          f"finite={ok}", flush=True)
+          f"finite={ok} [{card}]", flush=True)
     return pps
 
 
 def main():
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench_scale.py: no GPU (JAX platform {dev.platform!r})",
+              file=sys.stderr)
+        return 1
+    card = f"{card_line()}; JAX {dev.device_kind}"
     n_worms = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     fill = float(sys.argv[2]) if len(sys.argv) > 2 else 0.8
     engine = sys.argv[3] if len(sys.argv) > 3 else "fastw"
@@ -82,15 +87,16 @@ def main():
     print(f"{n_worms}-worm scene: {mscene.counts} "
           f"(build {time.time()-t0:.0f}s)", flush=True)
     for eng in engines:
-        measure(f"{n_worms}-worm", mscene, wide, engine=eng)
+        measure(f"{n_worms}-worm", mscene, wide, card, engine=eng)
 
     t0 = time.time()
     dscene = generate_liquid_box_scene(base, fill_fraction=fill)
     print(f"dam-break fill={fill}: {dscene.counts} "
           f"(build {time.time()-t0:.0f}s)", flush=True)
     for eng in engines:
-        measure("dam-break", dscene, base, engine=eng)
+        measure("dam-break", dscene, base, card, engine=eng)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -1,4 +1,4 @@
-"""Locomotion acceptance run (VERDICT r1 #8): long-horizon worm drive.
+"""Locomotion acceptance run: long-horizon worm drive.
 
 Runs the worm-in-pool scene for many thousands of steps on the fast engine
 and records what the reference exists to produce — sustained muscle-driven
@@ -7,19 +7,17 @@ undulation:
 * center-of-mass z displacement of the elastic body beyond noise
 * shape integrity: elastic bounding box bounded, spring strain bounded
 * density stability: liquid median density inside a physical band
-* a rendered frame strip (frames/*.png)
+* a rendered frame strip (--frames DIR, needs matplotlib)
 
 The muscle wave advances 1e-4 rad/step (main_sim.py:8), so one full
 undulation cycle is ~63k steps; the default horizon covers a meaningful
-fraction of a cycle. Appends a results block to BASELINE.md when invoked
-with --record.
+fraction of a cycle.
 """
 import argparse
 import os
 import sys
 import time
 
-os.environ["JAX_PLATFORMS"] = ""
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
@@ -29,14 +27,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20000)
     ap.add_argument("--chunk", type=int, default=30,
-                    help="compiled scan length (10 compiles in ~25 s; "
-                    "longer outer scans compile pathologically on 1 core)")
+                    help="compiled scan length (one resort period)")
     ap.add_argument("--report-every", type=int, default=500)
     ap.add_argument("--small", action="store_true",
                     help="reduced worm world (faster)")
-    ap.add_argument("--frames", default="/tmp/locomotion_frames")
-    ap.add_argument("--record", action="store_true",
-                    help="append results to BASELINE.md")
+    ap.add_argument("--frames", default=None,
+                    help="render a frame strip into this directory")
     ap.add_argument("--assert-propels", action="store_true",
                     help="exit nonzero unless the worm PROPELS with "
                     "bounded strain — the reproducible acceptance gate "
@@ -45,17 +41,25 @@ def main():
     args = ap.parse_args()
 
     import jax
-    from sph_tpu.config import SimParams
-    from sph_tpu.scene import generate_worm_scene
-    from sph_tpu.core.fast import compute_fast_config, make_fast_multi_step
-    from sph_tpu.constants import ELASTIC_PARTICLE, LIQUID_PARTICLE
-    from sph_tpu.viz import render_frame
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        # on the CPU the pair kernels would only run interpreted
+        print(f"locomotion.py: no GPU (JAX platform {dev.platform!r})",
+              file=sys.stderr)
+        return 1
+    from sph_jax.checks import card_line
+    from sph_jax.config import SimParams
+    from sph_jax.scene import generate_worm_scene
+    from sph_jax.core.fast import compute_fast_config, make_fast_multi_step
+    from sph_jax.constants import ELASTIC_PARTICLE
 
     H = 3.34
     if args.small:
         params = SimParams(x_max=14 * H, y_max=12 * H, z_max=108 * H)
     else:
         params = SimParams()
+    print(f"card: {card_line()}; JAX {dev.device_kind}", flush=True)
     t0 = time.time()
     scene = generate_worm_scene(params)
     print(f"scene: {scene.n_particles} particles {scene.counts} "
@@ -67,7 +71,6 @@ def main():
     run = make_fast_multi_step(params, layout, cfg, args.chunk)
 
     el = np.asarray(state.ptype) == ELASTIC_PARTICLE
-    liq = np.asarray(state.ptype) == LIQUID_PARTICLE
     rest = np.asarray(springs.rest)
     sidx = np.asarray(springs.idx)
     rows = np.asarray(springs.row_ids)
@@ -87,7 +90,10 @@ def main():
     print(f"start: com={com0}, elastic bb={bb0}, "
           f"max strain={strain(p0):.3f}", flush=True)
 
-    os.makedirs(args.frames, exist_ok=True)
+    if args.frames:
+        from sph_jax.viz import render_frame
+
+        os.makedirs(args.frames, exist_ok=True)
     trace = []
     t0 = time.time()
     done = 0
@@ -108,7 +114,7 @@ def main():
               f"  strain={st:.3f}  finite={ok}  {el_ms:.1f} ms/step",
               flush=True)
         assert ok, "non-finite state"
-        if done % (args.steps // 10 or 1) < args.chunk:
+        if args.frames and done % (args.steps // 10 or 1) < args.chunk:
             render_frame(
                 pos, np.asarray(state.ptype),
                 os.path.join(args.frames, f"strip_{frame_i:02d}.png"),
@@ -134,21 +140,6 @@ def main():
     verdict = "PROPELS" if abs(dz) > 3 * noise and abs(dz) > 0.05 else \
         "no net propulsion beyond noise"
     print("verdict:", verdict)
-
-    if args.record:
-        with open(os.path.join(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))), "BASELINE.md"), "a") as fh:
-            fh.write(
-                f"\n### Locomotion run ({args.steps} steps, "
-                f"{'small' if args.small else 'full'} worm, "
-                f"{scene.n_particles} particles)\n\n"
-                f"- COM-z displacement: {dz:+.4f} sim units "
-                f"(noise {noise:.4f}) — {verdict}\n"
-                f"- elastic bounding box {np.round(bb0, 1).tolist()} -> "
-                f"{np.round(bb1, 1).tolist()}; "
-                f"final max spring strain {strain(pos):.3f}\n"
-                f"- frame strip: {args.frames}\n"
-            )
 
     if args.assert_propels:
         final_strain = strain(pos)

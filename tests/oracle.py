@@ -3,7 +3,7 @@
 A deliberately slow, loop-free-of-cleverness transcription of the reference's
 physics in its original scaled-SI formulation (citations per function point
 into /root/reference/src/sphFluid.cl). Used only by tests to validate the
-nondimensionalized f32 TPU implementation.
+nondimensionalized f32 implementation.
 """
 import numpy as np
 

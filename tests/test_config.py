@@ -7,7 +7,7 @@ import pytest
 
 pytestmark = pytest.mark.smoke
 
-from sph_tpu.config import DEFAULT_PARAMS, SimParams
+from sph_jax.config import DEFAULT_PARAMS, SimParams
 
 
 def test_simulation_scale():

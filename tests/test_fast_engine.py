@@ -2,25 +2,25 @@
 
 The fast engine interacts all pairs within radius h (no 32-neighbor cap);
 on scenes where the cap never binds the two engines must agree to float32
-round-off. Compiled-Mosaic behavior is additionally validated on real TPU
-runs (identical outputs to interpret mode were confirmed on the worm scene).
+round-off. The compiled kernels are checked against the same oracles on
+the GPU by tests/test_gpu.py and chip_smoke.py.
 """
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from sph_tpu.config import SimParams
-from sph_tpu.constants import (
+from sph_jax.config import SimParams
+from sph_jax.constants import (
     BOUNDARY_PARTICLE,
     ELASTIC_PARTICLE,
     LIQUID_PARTICLE,
     MAX_NEIGHBORS,
 )
-from sph_tpu.core.fast import compute_fast_config, make_fast_multi_step
-from sph_tpu.core.state import Springs
-from sph_tpu.core.step import multi_step
-from sph_tpu.scene import generate_liquid_box_scene
-from sph_tpu.scene.scene import Scene
+from sph_jax.core.fast import compute_fast_config, make_fast_multi_step
+from sph_jax.core.state import Springs
+from sph_jax.core.step import multi_step
+from sph_jax.scene import generate_liquid_box_scene
+from sph_jax.scene.scene import Scene
 
 H = 3.34
 
@@ -140,33 +140,6 @@ def test_fast_membranes():
     assert np.asarray(ref.pos)[4, 1] > pos[4, 1]
 
 
-def test_fast_subgroup_gated_matches_ungated():
-    """sub=32 subgroup-gated main passes vs the plain block passes: gated
-    (tile x subgroup) skips contribute exact zeros, so the only deviation
-    is MXU reduction-operand order in the column-major dots (~1e-10/step);
-    also cross-check against the exact engine at the standard tolerance."""
-    params = SimParams(x_max=8 * H, y_max=8 * H, z_max=8 * H)
-    scene = generate_liquid_box_scene(params, fill_fraction=0.5)
-    state, springs, membranes = scene.device_state()
-    layout = scene.layout()
-    outs = {}
-    for sub in (None, 8, 16, 32):  # all scripts/sub_sweep.py gate sizes
-        cfg = compute_fast_config(scene.pos, params, block=128, ccol=128,
-                                  interpret=True, sub=sub)
-        outs[sub] = make_fast_multi_step(params, layout, cfg, 3)(
-            state, springs, membranes)
-    for sub in (8, 16, 32):
-        np.testing.assert_allclose(np.asarray(outs[sub].pos),
-                                   np.asarray(outs[None].pos),
-                                   rtol=0, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(outs[sub].vel),
-                                   np.asarray(outs[None].vel),
-                                   rtol=0, atol=1e-5)
-    ref = multi_step(state, springs, membranes, params, layout, 3)
-    np.testing.assert_allclose(np.asarray(outs[32].pos),
-                               np.asarray(ref.pos), rtol=0, atol=5e-5)
-
-
 def test_fast_matches_exact_with_box_min_offset():
     """Nonzero box_min: fast-engine cell binning must subtract the box origin
     exactly like grid.cell_coords_of, or slab windows shift and clip."""
@@ -185,11 +158,11 @@ def test_spring_pass_matches_gather_fallback():
     """The compact-slab spring pass vs the [Ne,32] gather fallback on a
     scene whose springs are all elastic-anchored (the generated test worm
     has boundary-anchored springs, so it exercises only the fallback —
-    this gap hid a TPU-only spring-force bug in r2)."""
+    this gap once hid a spring-force precision bug)."""
     import dataclasses
 
-    from sph_tpu.core.state import make_state, Springs, empty_membranes
-    from sph_tpu.core.step import SceneLayout
+    from sph_jax.core.state import make_state, Springs, empty_membranes
+    from sph_jax.core.step import SceneLayout
 
     params = SimParams()
     r0 = params.r0
@@ -249,10 +222,84 @@ def test_spring_pass_matches_gather_fallback():
     )
 
 
+def _stretched_sheet():
+    """An elastic sheet in the x-z plane whose springs join particles three
+    rows apart in z (2.7 h): every partner lies outside the +-1-pencil
+    bands of its own row, at compact columns far beyond the band chunks."""
+    import jax
+
+    from sph_jax.core.state import make_state, Springs, empty_membranes
+    from sph_jax.core.step import SceneLayout
+
+    params = SimParams(x_max=12 * H, y_max=8 * H, z_max=20 * H)
+    nxs, nzs, gap = 6, 16, 3
+    ix, iz = np.meshgrid(np.arange(nxs), np.arange(nzs), indexing="ij")
+    ix, iz = ix.ravel(), iz.ravel()
+    pos = np.stack([2.0 + 0.9 * H * ix, np.full(ix.shape, 4.0),
+                    2.0 + 0.9 * H * iz], 1).astype(np.float32)
+    n = len(pos)
+    state = make_state(pos, np.zeros_like(pos), np.full(n, 2, np.int32),
+                       np.zeros_like(pos))
+    idx = np.full((n, 2), -1, np.int32)
+    rest = np.zeros((n, 2), np.float32)
+    for k in range(n):
+        s = 0
+        for dz in (-gap, gap):
+            if 0 <= iz[k] + dz < nzs:
+                j = k + dz  # iz is the fast index of the ravelled grid
+                idx[k, s] = j
+                rest[k, s] = 0.95 * np.linalg.norm(pos[k] - pos[j]) \
+                    * params.simulation_scale
+                s += 1
+    springs = jax.tree.map(jnp.asarray, Springs(
+        row_ids=np.arange(n, dtype=np.int32), idx=idx, rest=rest,
+        muscle=np.zeros((n, 2), np.int32)))
+    lay = SceneLayout(n_particles=n, elastic_range=(0, n),
+                      springs_elastic_only=True, spring_slots=2)
+    return params, pos, state, springs, empty_membranes(n), lay
+
+
+@pytest.mark.parametrize("engine", ["fast", "fastw", "halo"])
+def test_spring_pass_counts_springs_beyond_window(engine):
+    """Springs stretched past the pencil-band window still act: the compact
+    spring pass (fast, fastw, or halo on 2 devices) against the fast
+    engine's gather fallback, at the default 8 x 8 tiles."""
+    import dataclasses
+
+    from sph_jax.core.fastw import compute_fastw_config, make_fastw_multi_step
+    from sph_jax.parallel import make_mesh, shard_state
+    from sph_jax.parallel.halo import make_halo_fast_multi_step
+
+    params, pos, state, springs, membranes, lay = _stretched_sheet()
+    cfg = compute_fast_config(pos, params, interpret=True, block_multiple=2)
+    ref = make_fast_multi_step(
+        params, dataclasses.replace(lay, springs_elastic_only=False), cfg,
+        2)(state, springs, membranes)
+    if engine == "fast":
+        out = make_fast_multi_step(params, lay, cfg, 2)(
+            state, springs, membranes)
+    elif engine == "fastw":
+        wcfg = compute_fastw_config(pos, params, lay, interpret=True)
+        out = make_fastw_multi_step(params, lay, wcfg, 2)(
+            state, springs, membranes)
+    else:
+        mesh = make_mesh(2)
+        out, diag = make_halo_fast_multi_step(
+            mesh, params, lay, cfg, 2, halo_pad=len(pos) // 2)(
+            shard_state(state, mesh), springs, membranes)
+        assert int(diag["halo_overflow"]) == 0
+    # the springs move the sheet: a dropped spring shows at this scale
+    assert float(jnp.max(jnp.abs(ref.vel))) > 1e-3
+    np.testing.assert_allclose(np.asarray(out.vel), np.asarray(ref.vel),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(out.pos), np.asarray(ref.pos),
+                               rtol=0, atol=1e-5)
+
+
 def test_stepper_matches_multi_step():
     """make_fast_stepper with one inner chunk per resort must reproduce
     make_fast_multi_step exactly (same resort cadence)."""
-    from sph_tpu.core.fast import make_fast_stepper
+    from sph_jax.core.fast import make_fast_stepper
 
     params = SimParams(x_max=8 * H, y_max=8 * H, z_max=8 * H)
     scene = generate_liquid_box_scene(params, fill_fraction=0.5)

@@ -10,17 +10,17 @@ engine itself to f32 reassociation noise.
 import numpy as np
 import pytest
 
-from sph_tpu.config import SimParams
-from sph_tpu.constants import MAX_NEIGHBORS
-from sph_tpu.core.fast import compute_fast_config, make_fast_multi_step
-from sph_tpu.core.fastw import (
+from sph_jax.config import SimParams
+from sph_jax.constants import MAX_NEIGHBORS
+from sph_jax.core.fast import compute_fast_config, make_fast_multi_step
+from sph_jax.core.fastw import (
     compute_fastw_config,
     make_fastw_multi_step,
     measure_shell_cap,
 )
-from sph_tpu.core.step import multi_step
-from sph_tpu.scene import generate_liquid_box_scene
-from sph_tpu.scene.scene import Scene
+from sph_jax.core.step import multi_step
+from sph_jax.scene import generate_liquid_box_scene
+from sph_jax.scene.scene import Scene
 
 from test_fast_engine import sparse_blob_scene
 
@@ -39,7 +39,6 @@ def compare_w(scene, params, steps, atol, **cfg_kw):
         state, springs, membranes
     )
     assert int(diag["shell_overflow"]) == 0
-    assert int(diag["tile_overflow"]) == 0
     np.testing.assert_allclose(
         np.asarray(out.pos), np.asarray(ref.pos), rtol=0, atol=atol
     )
@@ -153,7 +152,7 @@ def test_fastw_simulator_wiring():
     """engine="fastw" through the Simulator facade: steps advance, the
     overflow accumulators read-and-reset through check_overflow, and the
     result tracks the exact engine at engine tolerance."""
-    from sph_tpu.runtime import Simulator
+    from sph_jax.runtime import Simulator
 
     params = SimParams(x_max=8 * H, y_max=8 * H, z_max=8 * H)
     scene = generate_liquid_box_scene(params, fill_fraction=0.5)
@@ -165,7 +164,6 @@ def test_fastw_simulator_wiring():
     assert sim.step_count == 3
     ovf = sim.check_overflow()
     assert ovf["shell_overflow"] == 0
-    assert ovf["tile_overflow"] == 0
     assert ovf["window_drift_h"] >= 0.0
     np.testing.assert_allclose(
         sim.get_position(), np.asarray(ref.pos), rtol=0, atol=5e-5
@@ -173,13 +171,11 @@ def test_fastw_simulator_wiring():
 
 
 def test_fastw_wall_static_hoist_matches_in_jit():
-    """The r5 wall-static hoist (precomputed wall sort + f64 mutual
+    """The wall-static hoist (precomputed wall sort + f64 mutual
     density sums) must reproduce the in-jit wall path: the only
     difference is summation order/precision of the static wall-wall
-    sums, so positions agree to f32 noise. Unroll is semantics-only."""
-    import dataclasses
-
-    from sph_tpu.core.fastw import precompute_wall_static
+    sums, so positions agree to f32 noise."""
+    from sph_jax.core.fastw import precompute_wall_static
 
     params = SimParams(x_max=8 * H, y_max=8 * H, z_max=8 * H)
     scene = generate_liquid_box_scene(params, fill_fraction=0.5)
@@ -198,34 +194,28 @@ def test_fastw_wall_static_hoist_matches_in_jit():
     np.testing.assert_allclose(
         np.asarray(out.pos), np.asarray(base.pos), rtol=0, atol=1e-5
     )
-    # scan unroll must be bitwise-neutral (same graph, unrolled)
-    cfg_u = dataclasses.replace(cfg, unroll=3)
-    out_u = make_fastw_multi_step(params, layout, cfg_u, 4,
-                                  wall_static=ws)(
-        state, springs, membranes)
-    np.testing.assert_array_equal(
-        np.asarray(out_u.pos), np.asarray(out.pos)
-    )
 
 
 def test_auto_engine_resolution():
-    """engine="auto": exact off-TPU; on TPU, fastw only for wall-heavy
-    elastic-only-spring scenes (r5: fastw measured SLOWER than fast on
-    the 11%-wall dam-break), fast otherwise."""
+    """engine="auto": exact on the CPU (interpreted kernels); on the GPU,
+    fastw wherever springs are elastic-only, fast otherwise; any other
+    platform is an error."""
     import dataclasses
 
-    from sph_tpu.core.step import SceneLayout
-    from sph_tpu.runtime.simulator import resolve_auto_engine
+    from sph_jax.core.step import SceneLayout
+    from sph_jax.runtime.simulator import resolve_auto_engine
 
     worm_like = SceneLayout(n_particles=100, boundary_range=(56, 100))
-    assert resolve_auto_engine(False, worm_like) == "exact"
-    assert resolve_auto_engine(True, worm_like) == "fastw"
+    assert resolve_auto_engine("cpu", worm_like) == "exact"
+    assert resolve_auto_engine("gpu", worm_like) == "fastw"
     dam_like = SceneLayout(n_particles=100, boundary_range=(89, 100))
-    assert resolve_auto_engine(True, dam_like) == "fast"
+    assert resolve_auto_engine("gpu", dam_like) == "fastw"
     no_walls = SceneLayout(n_particles=100)
-    assert resolve_auto_engine(True, no_walls) == "fast"
+    assert resolve_auto_engine("gpu", no_walls) == "fastw"
     anchored = dataclasses.replace(worm_like, springs_elastic_only=False)
-    assert resolve_auto_engine(True, anchored) == "fast"
+    assert resolve_auto_engine("gpu", anchored) == "fast"
+    with pytest.raises(ValueError):
+        resolve_auto_engine("metal", worm_like)
 
 
 def test_fastw_shell_overflow_is_counted():
@@ -252,3 +242,44 @@ def test_fastw_shell_overflow_is_counted():
                                     return_diag=True)(
         state, springs, membranes)
     assert int(diag["shell_overflow"]) > 0
+
+
+@pytest.mark.parametrize("wall_static", [False, True])
+def test_stale_window_misses(wall_static):
+    """checks.stale_window_misses: the window tables cover every pair
+    within h at their own sort (all counts 0), and jittering the moving
+    rows by 0.6 h makes pairs close in from beyond the windows, which it
+    counts."""
+    import jax.numpy as jnp
+
+    from sph_jax import checks
+    from sph_jax.constants import BOUNDARY_PARTICLE
+    from sph_jax.core.fastw import make_fastw_stepper, precompute_wall_static
+
+    params = SimParams(x_max=8 * H, y_max=8 * H, z_max=8 * H)
+    scene = generate_liquid_box_scene(params, fill_fraction=0.5)
+    # the lattice starts > h from the walls: jitter it into their reach
+    rng = np.random.default_rng(0)
+    mov = scene.ptype != BOUNDARY_PARTICLE
+    scene.pos[mov] += rng.uniform(-0.6, 0.6, (mov.sum(), 3)) * params.h
+    state, springs, membranes = scene.device_state()
+    layout = scene.layout()
+    cfg = compute_fastw_config(scene.pos, params, layout, ptype=scene.ptype)
+    ws = precompute_wall_static(scene.pos, scene.normal, params, layout,
+                                cfg) if wall_static else None
+    sort, _, _ = make_fastw_stepper(params, layout, cfg, wall_static=ws)
+    ctx, carry, _ = sort(state, springs, membranes)
+    fresh = checks.stale_window_misses(ctx, carry, cfg, params)
+    assert fresh["mm_pairs"] > 0 and fresh["ms_pairs"] > 0
+    assert fresh["mm_missed"] == fresh["ms_missed"] == 0
+    assert fresh["sm_missed"] == 0
+    assert fresh["moving_max_share"] == fresh["shell_max_share"] == 0.0
+
+    n = cfg.n_mov
+    moved = tuple(
+        c.at[:n].add(jnp.asarray(rng.uniform(-0.6, 0.6, n) * params.h,
+                                 jnp.float32))
+        for c in carry[:3]) + tuple(carry[3:])
+    stale = checks.stale_window_misses(ctx, moved, cfg, params)
+    assert stale["mm_missed"] > 0
+    assert 0.0 < stale["moving_max_share"] <= 1.0

@@ -5,10 +5,10 @@ import pytest
 pytestmark = pytest.mark.smoke
 import jax.numpy as jnp
 
-from sph_tpu.config import SimParams
-from sph_tpu.core.grid import build_grid, cell_coords_of, linear_cell_id
-from sph_tpu.core.neighbors import find_neighbors
-from sph_tpu.ops import vec3
+from sph_jax.config import SimParams
+from sph_jax.core.grid import build_grid, cell_coords_of, linear_cell_id
+from sph_jax.core.neighbors import find_neighbors
+from sph_jax.ops import vec3
 
 
 def small_params(**kw):

@@ -9,11 +9,11 @@ import numpy as np
 import jax
 import pytest
 
-from sph_tpu.config import SimParams
-from sph_tpu.core.fast import compute_fast_config, make_fast_multi_step
-from sph_tpu.parallel import make_mesh, pad_scene_to_devices, shard_state
-from sph_tpu.parallel.halo import make_halo_fast_multi_step
-from sph_tpu.scene import generate_liquid_box_scene, generate_worm_scene
+from sph_jax.config import SimParams
+from sph_jax.core.fast import compute_fast_config, make_fast_multi_step
+from sph_jax.parallel import make_mesh, pad_scene_to_devices, shard_state
+from sph_jax.parallel.halo import make_halo_fast_multi_step
+from sph_jax.scene import generate_liquid_box_scene, generate_worm_scene
 
 H = 3.34
 
@@ -27,13 +27,12 @@ def n_dev():
 
 
 def _run_both(scene, params, n_dev, steps, halo_pad, block=256,
-              resort_every=10, sub=None):
+              resort_every=10):
     scene = pad_scene_to_devices(scene, n_dev * block)
     state, springs, membranes = scene.device_state()
     layout = scene.layout()
     cfg = compute_fast_config(
         scene.pos, params, block=block, resort_every=resort_every,
-        sub=sub,
     )
 
     ref = make_fast_multi_step(params, layout, cfg, steps)(
@@ -51,12 +50,11 @@ def _run_both(scene, params, n_dev, steps, halo_pad, block=256,
 
 def test_halo_matches_fast_box(n_dev):
     # z-elongated box: slabs are meaningful (a z cell-row holds ~190
-    # particles, well under the 512-row halo band); sub=32 covers the
-    # subgroup-gated halo path (gate windows remapped to slab coords)
+    # particles, well under the 512-row halo band)
     params = SimParams(x_max=6 * H, y_max=6 * H, z_max=60 * H)
     scene = generate_liquid_box_scene(params, fill_fraction=0.5)
     ref, out, overflow = _run_both(
-        scene, params, n_dev, steps=5, halo_pad=512, block=128, sub=32
+        scene, params, n_dev, steps=5, halo_pad=512, block=128
     )
     assert overflow == 0, "halo band too small for the box scene"
     np.testing.assert_allclose(
@@ -87,7 +85,7 @@ def test_halo_matches_fast_worm(n_dev):
 def test_simulator_halo_engine(n_dev):
     """Simulator(engine='halo') pads the scene to the device grid, steps,
     and surfaces the halo_overflow diagnostic."""
-    from sph_tpu.runtime import Simulator
+    from sph_jax.runtime import Simulator
 
     params = SimParams(x_max=6 * H, y_max=6 * H, z_max=60 * H)
     scene = generate_liquid_box_scene(params, fill_fraction=0.5)
@@ -104,7 +102,7 @@ def test_simulator_halo_engine(n_dev):
 def test_simulator_halo_distributed(n_dev):
     """Simulator(engine='halo', distributed_resort=True) steps and
     surfaces the resort_overflow diagnostic."""
-    from sph_tpu.runtime import Simulator
+    from sph_jax.runtime import Simulator
 
     params = SimParams(x_max=6 * H, y_max=6 * H, z_max=60 * H)
     scene = generate_liquid_box_scene(params, fill_fraction=0.5)
@@ -119,7 +117,7 @@ def test_simulator_halo_distributed(n_dev):
 
 def test_distributed_resort_matches_replicated(n_dev):
     """The O(cells) distributed resort (histogram ranks + neighbor-only
-    migration, halo.py round 4) vs the replicated all-gather resort,
+    migration, halo.py) vs the replicated all-gather resort,
     crossing MULTIPLE resort boundaries. Intra-cell order differs (stable
     w.r.t. previous sorted order vs original ids), so agreement is to f32
     round-off, not bitwise."""
@@ -130,7 +128,7 @@ def test_distributed_resort_matches_replicated(n_dev):
     state, springs, membranes = scene.device_state()
     layout = scene.layout()
     cfg = compute_fast_config(
-        scene.pos, params, block=block, resort_every=3, sub=32
+        scene.pos, params, block=block, resort_every=3
     )
     mesh = make_mesh(n_dev)
     outs = {}
@@ -179,7 +177,7 @@ def test_halo_session_matches_multi_step(n_dev):
     """The session API (begin -> k x step -> finish) must reproduce the
     one-call distributed runner exactly: same sweeps, same arithmetic,
     only the jit boundaries differ."""
-    from sph_tpu.parallel import make_halo_session
+    from sph_jax.parallel import make_halo_session
 
     params = SimParams(x_max=6 * H, y_max=6 * H, z_max=60 * H)
     scene = generate_liquid_box_scene(params, fill_fraction=0.5)
@@ -188,7 +186,7 @@ def test_halo_session_matches_multi_step(n_dev):
     state, springs, membranes = scene.device_state()
     layout = scene.layout()
     cfg = compute_fast_config(
-        scene.pos, params, block=block, resort_every=3, sub=32
+        scene.pos, params, block=block, resort_every=3
     )
     mesh = make_mesh(n_dev)
     state_s = shard_state(state, mesh)
@@ -217,9 +215,9 @@ def test_halo_session_matches_multi_step(n_dev):
 def test_measure_halo_pad():
     """Scene-measured halo band: covers the densest two z-rows with
     margin, ALIGN-rounded, and at least ALIGN."""
-    from sph_tpu.parallel import measure_halo_pad
-    from sph_tpu.core.fast import compute_fast_config
-    from sph_tpu.ops.pair_kernels import ALIGN
+    from sph_jax.parallel import measure_halo_pad
+    from sph_jax.core.fast import compute_fast_config
+    from sph_jax.ops.pair_kernels import ALIGN
 
     params = SimParams()
     rng = np.random.default_rng(3)
@@ -246,7 +244,7 @@ def test_halo_multi_worm():
     resort boundary (SURVEY §7 step 7 at multi-worm scale)."""
     import dataclasses
 
-    from sph_tpu.scene import (
+    from sph_jax.scene import (
         generate_multi_worm_params, generate_multi_worm_scene)
 
     H = 3.34
@@ -274,43 +272,8 @@ def test_halo_multi_worm():
     assert err <= 5e-5, err
 
 
-def test_mesh2_two_level(n_dev):
-    """2x4 two-level (slices x chips) mesh: the halo engine runs
-    unchanged over the slice-major flattening (the 1-D neighbor chain is
-    the whole comm pattern), and dcn_edges identifies exactly the
-    slice-boundary edges that would ride DCN on a real pod."""
-    from sph_tpu.parallel import dcn_edges, make_mesh2
-
-    if n_dev < 8:
-        pytest.skip("needs 8 virtual devices")
-    assert dcn_edges(2, 4) == [(3, 4)]
-    assert dcn_edges(4, 2) == [(1, 2), (3, 4), (5, 6)]
-
-    params = SimParams(x_max=6 * H, y_max=6 * H, z_max=60 * H)
-    scene = generate_liquid_box_scene(params, fill_fraction=0.5)
-    block = 128
-    scene = pad_scene_to_devices(scene, 8 * block)
-    state, springs, membranes = scene.device_state()
-    layout = scene.layout()
-    cfg = compute_fast_config(
-        scene.pos, params, block=block, resort_every=3
-    )
-    mesh = make_mesh2(2, 4)
-    run = make_halo_fast_multi_step(
-        mesh, params, layout, cfg, n_steps=4, halo_pad=512,
-        distributed_resort=True,
-    )
-    out, diag = run(shard_state(state, mesh), springs, membranes)
-    assert int(diag["halo_overflow"]) == 0
-    assert int(diag["resort_overflow"]) == 0
-    ref = make_fast_multi_step(params, layout, cfg, 4)(
-        state, springs, membranes)
-    err = float(np.abs(np.asarray(out.pos) - np.asarray(ref.pos)).max())
-    assert err <= 5e-5, err
-
-
 def test_migration_overflow_detected(n_dev):
-    """The distributed resort must COUNT dropped rows (VERDICT r4 #6):
+    """The distributed resort must COUNT dropped rows:
     bulk-advect the whole box by ~a cell per step so the first resort
     migrates far more rows than a deliberately tiny mig_cap can carry —
     diag["resort_overflow"] must come back nonzero (physics sanity is
@@ -345,12 +308,12 @@ def test_migration_overflow_detected(n_dev):
 
 def test_particle_loss_is_loud(n_dev, caplog):
     """Dropped particles must produce an ERROR at the Simulator run site,
-    not only a pollable diagnostic (VERDICT r4 #6)."""
+    not only a pollable diagnostic."""
     import logging
 
     import jax.numpy as jnp
 
-    from sph_tpu.runtime import Simulator
+    from sph_jax.runtime import Simulator
 
     params = SimParams(x_max=6 * H, y_max=6 * H, z_max=60 * H)
     scene = generate_liquid_box_scene(params, fill_fraction=0.5)
@@ -358,7 +321,7 @@ def test_particle_loss_is_loud(n_dev, caplog):
     # seed the lazy accumulator the halo run wrapper max-accumulates into:
     # equivalent to a chunk having reported this overflow
     sim._resort_overflow = jnp.asarray(7)
-    with caplog.at_level(logging.ERROR, logger="sph_tpu"):
+    with caplog.at_level(logging.ERROR, logger="sph_jax"):
         sim.step(1)
     assert any(
         r.levelno == logging.ERROR and "DROPPED" in r.getMessage()

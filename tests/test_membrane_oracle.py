@@ -1,9 +1,9 @@
-"""Membrane kernel vs an independent f64 transcription (VERDICT r4 #5).
+"""Membrane kernel vs an independent f64 transcription.
 
-Until round 5 the most intricate reference kernel
-(`sphFluid.cl:1369-1682`, computeInteractionWithMembranes) was validated
-only by a synthetic direction test and fast-vs-exact parity — which
-compares the same rewrite against itself. ``oracle.membrane_interaction``
+Without this oracle the most intricate reference kernel
+(`sphFluid.cl:1369-1682`, computeInteractionWithMembranes) would be
+validated only by a synthetic direction test and fast-vs-exact parity —
+which compares the same rewrite against itself. ``oracle.membrane_interaction``
 is a literal f64 transcription of the LIVE reference path (per-jd
 averaged Cramer-projection normals, z-zeroed neighbor distance, Ihmsen
 sums, liquid-only application, degenerate-abort), against which the
@@ -15,14 +15,14 @@ import numpy as np
 import pytest
 
 import oracle
-from sph_tpu.config import SimParams
-from sph_tpu.constants import LIQUID_PARTICLE
-from sph_tpu.core.membranes import membrane_position_correction
-from sph_tpu.core.neighbors import NeighborList
-from sph_tpu.core.state import Membranes
-from sph_tpu.core.step import multi_step
-from sph_tpu.ops import vec3
-from sph_tpu.scene.scene import Scene
+from sph_jax.config import SimParams
+from sph_jax.constants import LIQUID_PARTICLE
+from sph_jax.core.membranes import membrane_position_correction
+from sph_jax.core.neighbors import NeighborList
+from sph_jax.core.state import Membranes
+from sph_jax.core.step import multi_step
+from sph_jax.ops import vec3
+from sph_jax.scene.scene import Scene
 
 MAXN = 32
 
@@ -57,7 +57,7 @@ def worm_membrane_patch(radius_h=3.0, max_n=1500):
     """A real patch of the worm: all particles within radius of a
     mid-body membrane triangle centroid, triangle list remapped."""
     params = SimParams()
-    from sph_tpu.scene import generate_worm_scene
+    from sph_jax.scene import generate_worm_scene
 
     scene = generate_worm_scene(params)
     pos = np.asarray(scene.pos, np.float64)
@@ -116,15 +116,14 @@ def test_engine_matches_oracle_on_worm_mesh(patch):
 
 
 def test_deviation_bounds_on_worm_mesh(patch):
-    """Quantify the two documented deviations on the real mesh, the way
-    the cap deviation was quantified (BASELINE.md records the numbers),
+    """Quantify the two documented deviations on the real mesh,
     attributing each separately.
 
     A single particle's correction is bounded by r0 in either mode
     (delta = n_hat * sum(w (r0-d)) / sum(w) with 0 <= r0-d <= r0), so
     any mode pair can disagree by at most 2 r0 — that is the hard
-    physical bound asserted here. The measured per-particle deviations
-    are what BASELINE.md records: z-zeroing the neighbor distance
+    physical bound asserted here. Of the per-particle deviations:
+    z-zeroing the neighbor distance
     (sphFluid.cl:1439) INFLATES Ihmsen weights (d can only shrink), and
     abort-on-degenerate (cl:1468/1501) zeroes whole particles, so
     individual corrections can legitimately differ by the full

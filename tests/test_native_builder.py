@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from sph_tpu.config import SimParams
-from sph_tpu.scene import native, worm
+from sph_jax.config import SimParams
+from sph_jax.scene import native, worm
 
 H = 3.34
 

@@ -2,11 +2,12 @@
 import os
 
 import numpy as np
+import pytest
 
-from sph_tpu.cli import main as cli_main
-from sph_tpu.config import SimParams
-from sph_tpu.runtime import Simulator
-from sph_tpu.scene import generate_liquid_box_scene
+from sph_jax.cli import main as cli_main
+from sph_jax.config import SimParams
+from sph_jax.runtime import Simulator
+from sph_jax.scene import generate_liquid_box_scene
 
 H = 3.34
 
@@ -31,7 +32,7 @@ def test_simulator_step_and_getters(tmp_path):
     assert int(d["cell_overflow"]) == 0
     # dump frames at steps 0, 5, 10 (interval boundaries crossed);
     # flush() drains the async IO stream before reading the file
-    from sph_tpu.scene.io import load_trajectory
+    from sph_jax.scene.io import load_trajectory
 
     sim.flush()
     _, _, frames = load_trajectory(str(tmp_path / "position_buffer.txt"))
@@ -65,7 +66,7 @@ def test_async_io_error_is_raised(tmp_path):
     """A worker-thread IO failure must surface on flush, not vanish."""
     import pytest
 
-    from sph_tpu.runtime.async_io import AsyncWriter
+    from sph_jax.runtime.async_io import AsyncWriter
 
     w = AsyncWriter()
 
@@ -156,8 +157,8 @@ def test_simulator_derives_cell_capacity_for_worm():
     """The worm shell packs >80 particles into a 2h cell; the Simulator must
     derive a covering cell_capacity so candidates are never dropped
     (the reference truncates silently, sphFluid.cl:169)."""
-    from sph_tpu.core.grid import max_cell_occupancy
-    from sph_tpu.scene import generate_worm_scene
+    from sph_jax.core.grid import max_cell_occupancy
+    from sph_jax.scene import generate_worm_scene
 
     params = SimParams(x_max=14 * H, y_max=12 * H, z_max=108 * H)
     scene = generate_worm_scene(params)
@@ -178,7 +179,7 @@ def test_overflow_warning_surfaces(caplog):
     sim = Simulator(scene, params, engine="exact")
     # shrink the cell capacity far below what the scene needs
     sim.params = dataclasses.replace(sim.params, cell_capacity=1)
-    with caplog.at_level(logging.WARNING, logger="sph_tpu"):
+    with caplog.at_level(logging.WARNING, logger="sph_jax"):
         out = sim.check_overflow()
     assert out["cell_overflow"] > 0
     assert any("overflow" in r.message for r in caplog.records)
@@ -188,14 +189,14 @@ def test_render_frame_spring_membrane_hud(tmp_path):
     """Viz parity overlays (owWorldSimulation.cpp:206-347,501-641): muscle
     springs widen while active, membranes draw midlines, HUD text block."""
     import numpy as np
-    from sph_tpu.viz.render import (
+    from sph_jax.viz.render import (
         _hud_text,
         _membrane_segments,
         _spring_segments,
         render_frame,
     )
-    from sph_tpu.config import SimParams
-    from sph_tpu.scene import generate_worm_scene
+    from sph_jax.config import SimParams
+    from sph_jax.scene import generate_worm_scene
 
     H = 3.34
     params = SimParams(x_max=14 * H, y_max=12 * H, z_max=108 * H)
@@ -232,7 +233,7 @@ def test_render_frame_spring_membrane_hud(tmp_path):
 def test_window_drift_diagnostic():
     """The fast engine surfaces per-resort-period max drift (in units of
     h) through check_overflow — the window-staleness signal (windows are
-    exact at sort time only; BASELINE.md quantifies the deviation)."""
+    exact at sort time only)."""
     scene, params = box_scene()
     sim = Simulator(scene, params, engine="fast")
     sim.step(sim._fast_chunk)
@@ -261,3 +262,24 @@ def test_adaptive_resort_moves_down_the_ladder():
                      drift_threshold_h=10.0)
     sim2.step(base)
     assert sim2._fast_chunk == base
+
+
+@pytest.mark.parametrize("script", [
+    "bench.py", "chip_smoke.py", "scripts/bench_scale.py",
+    "scripts/locomotion.py", "scripts/window_staleness.py",
+])
+def test_timing_scripts_refuse_the_cpu(script):
+    """Every script that prints a device time exits non-zero, with no
+    result, when JAX finds no GPU (the pair kernels would only run
+    interpreted there)."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, os.path.join(root, script)],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "no GPU" in out.stderr
+    assert "ms/step" not in out.stdout and '"ok"' not in out.stdout

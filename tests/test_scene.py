@@ -8,13 +8,13 @@ import pytest
 
 pytestmark = pytest.mark.smoke
 
-from sph_tpu.config import SimParams
-from sph_tpu.constants import (
+from sph_jax.config import SimParams
+from sph_jax.constants import (
     BOUNDARY_PARTICLE,
     ELASTIC_PARTICLE,
     LIQUID_PARTICLE,
 )
-from sph_tpu.scene import generate_liquid_box_scene, generate_worm_scene, io
+from sph_jax.scene import generate_liquid_box_scene, generate_worm_scene, io
 
 H = 3.34
 
@@ -136,7 +136,7 @@ def test_multi_worm_scene():
     """n worms = n x the single worm's elastic/spring/membrane counts,
     one shared pool, no cross-worm springs (SURVEY §7 step 6 stress
     config; the reference hard-codes one worm)."""
-    from sph_tpu.scene import (
+    from sph_jax.scene import (
         generate_multi_worm_params,
         generate_multi_worm_scene,
         generate_worm_scene,

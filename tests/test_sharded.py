@@ -7,15 +7,15 @@ import numpy as np
 import jax
 import pytest
 
-from sph_tpu.config import SimParams
-from sph_tpu.core.step import multi_step
-from sph_tpu.parallel import (
+from sph_jax.config import SimParams
+from sph_jax.core.step import multi_step
+from sph_jax.parallel import (
     make_mesh,
     make_sharded_step,
     pad_scene_to_devices,
     shard_state,
 )
-from sph_tpu.scene import generate_liquid_box_scene, generate_worm_scene
+from sph_jax.scene import generate_liquid_box_scene, generate_worm_scene
 
 H = 3.34
 

@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from sph_tpu.config import SimParams
-from sph_tpu.core.step import diagnostics, multi_step
-from sph_tpu.scene.io import load_scene, load_scene_one_file
-from sph_tpu.constants import (
+from sph_jax.config import SimParams
+from sph_jax.core.step import diagnostics, multi_step
+from sph_jax.scene.io import load_scene, load_scene_one_file
+from sph_jax.constants import (
     BOUNDARY_PARTICLE,
     ELASTIC_PARTICLE,
     LIQUID_PARTICLE,
